@@ -6,11 +6,11 @@ writers), reported as hets/s and blocks/s against the reference's published
 steady state (~2,068 hets/s, 16 CPU threads, HG001 WGS local-only mode;
 ref: docs/user_guide.md:78).
 
-Usage: python bench_e2e.py [--mb 100] [--coverage 30] [--engine tpu]
+Usage: python bench_e2e.py [--mb 100] [--coverage 30] [--engine device]
 
 The dataset is built once (vectorized simulator) and cached under
-~/.cache/hiphase_tpu_bench keyed by its parameters; repeat runs only time
-the pipeline.
+``.bench_data/`` in the checkout (or $HIPHASE_BENCH_CACHE), keyed by its
+parameters; repeat runs only time the pipeline.
 """
 
 from __future__ import annotations
@@ -26,8 +26,8 @@ def dataset_dir(args) -> str:
     key = (f"mb{args.mb}_cov{args.coverage}_rl{args.read_length}"
            f"_het{args.het_spacing}_err{args.error_rate}"
            f"_blk{args.block_kb}_seed{args.seed}_v3")
-    base = os.environ.get("HIPHASE_TPU_BENCH_CACHE",
-                          os.path.expanduser("~/.cache/hiphase_tpu_bench"))
+    base = os.environ.get("HIPHASE_BENCH_CACHE") or os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), ".bench_data")
     return os.path.join(base, key)
 
 
@@ -37,7 +37,7 @@ def ensure_dataset(args) -> dict:
     if os.path.exists(meta_path):
         with open(meta_path) as fh:
             return json.load(fh)
-    from hiphase_tpu.utils.simulate import build_benchmark_dataset
+    from hiphase_jax.utils.simulate import build_benchmark_dataset
     t0 = time.time()
     meta = build_benchmark_dataset(
         d, total_mb=args.mb, coverage=args.coverage,
@@ -68,7 +68,7 @@ def run_once(args, meta) -> float:
         cli_args.append("--disable-global-realignment")
     if args.output_bam:
         cli_args += ["--output-bam", os.path.join(out_dir, "tagged.bam")]
-    from hiphase_tpu.cli import main as cli_main
+    from hiphase_jax.cli import main as cli_main
     t0 = time.time()
     rc = cli_main(cli_args)
     elapsed = time.time() - t0
@@ -86,7 +86,7 @@ def _parser():
     ap.add_argument("--block-kb", type=int, default=250)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--engine", default="auto",
-                    choices=["auto", "astar", "tpu", "native"])
+                    choices=["auto", "astar", "device", "native"])
     ap.add_argument("--threads", type=int, default=2)
     ap.add_argument("--global", dest="global_mode", action="store_true",
                     help="enable global realignment (dual mode); default is "
@@ -117,7 +117,7 @@ def main(argv=None):
 
     hets_per_sec = meta["n_het"] / elapsed
     baseline = 2068.0
-    from hiphase_tpu.cli import LAST_RUN_STATS
+    from hiphase_jax.cli import LAST_RUN_STATS
     out = {
         "metric": "e2e_phased_hets_per_sec",
         "value": round(hets_per_sec, 1),

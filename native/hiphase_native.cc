@@ -1,8 +1,8 @@
-// hiphase_tpu native host library.
+// hiphase_jax native host library.
 //
 // The reference's only native dependency is htslib (C) — BGZF codec with a
 // thread pool plus record I/O (SURVEY.md §2 L0/§2.11). This library provides
-// the TPU build's equivalents:
+// this build's equivalents:
 //   * multithreaded BGZF block compression / decompression (the analog of
 //     htslib's bgzf + tpool, used by the BAM/VCF writers and readers)
 //   * batched Levenshtein edit distance (hot loop #3, the local-realignment
@@ -10,7 +10,9 @@
 //
 // Exposed as a plain C ABI for ctypes (no pybind11 in this environment).
 //
-// Build: make -C native   (produces libhiphase_native.so)
+// Build: make -C native   (produces libhiphase_native.so; hiphase_jax.io.native
+// runs it on first load). libdeflate is used when the host has it
+// (HN_HAVE_LIBDEFLATE, set by the Makefile); otherwise zlib alone.
 
 #include <algorithm>
 #include <atomic>
@@ -27,7 +29,9 @@
 #include <vector>
 
 #include <zlib.h>
+#ifdef HN_HAVE_LIBDEFLATE
 #include <libdeflate.h>
+#endif
 
 namespace {
 
@@ -71,6 +75,15 @@ void parallel_for(int64_t n, int threads, F&& fn) {
 
 extern "C" {
 
+// 1 when built against libdeflate, 0 for the zlib-only build.
+int32_t hn_has_libdeflate() {
+#ifdef HN_HAVE_LIBDEFLATE
+  return 1;
+#else
+  return 0;
+#endif
+}
+
 // Compress `n_blocks` independent payloads into BGZF blocks.
 //   in:          concatenated payload bytes
 //   in_offsets:  n_blocks+1 offsets into `in` (block i = [off[i], off[i+1]))
@@ -97,6 +110,10 @@ int64_t hn_bgzf_compress_many(const uint8_t* in, const int64_t* in_offsets,
     std::vector<uint8_t>& dst = results[i];
     dst.resize(max_block);
 
+    uint8_t* cdata = dst.data() + kBgzfHeaderLen;
+    size_t cdata_cap =
+        static_cast<size_t>(max_block - kBgzfHeaderLen - kBgzfFooterLen);
+#ifdef HN_HAVE_LIBDEFLATE
     // libdeflate's compressor + crc32 are ~2x zlib's at the same level
     thread_local libdeflate_compressor* comp_cache = nullptr;
     thread_local int comp_level = -1;
@@ -110,18 +127,37 @@ int64_t hn_bgzf_compress_many(const uint8_t* in, const int64_t* in_offsets,
       return;
     }
     size_t cdata_len = libdeflate_deflate_compress(
-        comp_cache, src, static_cast<size_t>(src_len),
-        dst.data() + kBgzfHeaderLen,
-        static_cast<size_t>(max_block - kBgzfHeaderLen - kBgzfFooterLen));
+        comp_cache, src, static_cast<size_t>(src_len), cdata, cdata_cap);
     if (cdata_len == 0) {
       failed.store(true);
       return;
     }
+    uint32_t crc = static_cast<uint32_t>(
+        libdeflate_crc32(0, src, static_cast<size_t>(src_len)));
+#else
+    z_stream zs{};
+    if (deflateInit2(&zs, std::min(level, 9), Z_DEFLATED, -15, 8,
+                     Z_DEFAULT_STRATEGY) != Z_OK) {
+      failed.store(true);
+      return;
+    }
+    zs.next_in = const_cast<Bytef*>(src);
+    zs.avail_in = static_cast<uInt>(src_len);
+    zs.next_out = cdata;
+    zs.avail_out = static_cast<uInt>(cdata_cap);
+    int zrc = deflate(&zs, Z_FINISH);
+    size_t cdata_len = zs.total_out;
+    deflateEnd(&zs);
+    if (zrc != Z_STREAM_END) {
+      failed.store(true);
+      return;
+    }
+    uint32_t crc = static_cast<uint32_t>(
+        crc32(0, src, static_cast<uInt>(src_len)));
+#endif
     uint32_t bsize =
         static_cast<uint32_t>(kBgzfHeaderLen + cdata_len + kBgzfFooterLen);
     write_bgzf_header(dst.data(), bsize);
-    uint32_t crc = static_cast<uint32_t>(
-        libdeflate_crc32(0, src, static_cast<size_t>(src_len)));
     uint8_t* tail = dst.data() + kBgzfHeaderLen + cdata_len;
     uint32_t isize = static_cast<uint32_t>(src_len);
     std::memcpy(tail, &crc, 4);
@@ -174,10 +210,11 @@ int32_t hn_bgzf_decompress_many(const uint8_t* in, const int64_t* block_offsets,
       failed.store(true);
       return;
     }
+    size_t actual = 0;
+#ifdef HN_HAVE_LIBDEFLATE
     // libdeflate's whole-buffer decompressor is ~2-3x faster than zlib's
     // streaming inflate for BGZF-sized blocks (the pipeline's dominant
     // byte-volume operation: every read's bases+quals pass through here)
-    size_t actual = 0;
     thread_local libdeflate_decompressor* dec = libdeflate_alloc_decompressor();
     if (dec == nullptr ||
         libdeflate_deflate_decompress(
@@ -187,6 +224,23 @@ int32_t hn_bgzf_decompress_many(const uint8_t* in, const int64_t* block_offsets,
         static_cast<int64_t>(actual) != expected) {
       failed.store(true);
     }
+#else
+    z_stream zs{};
+    if (inflateInit2(&zs, -15) != Z_OK) {
+      failed.store(true);
+      return;
+    }
+    zs.next_in = const_cast<Bytef*>(block + cdata_off);
+    zs.avail_in = static_cast<uInt>(cdata_len);
+    zs.next_out = out + out_offsets[i];
+    zs.avail_out = static_cast<uInt>(expected);
+    int zrc = inflate(&zs, Z_FINISH);
+    actual = zs.total_out;
+    inflateEnd(&zs);
+    if (zrc != Z_STREAM_END || static_cast<int64_t>(actual) != expected) {
+      failed.store(true);
+    }
+#endif
   });
   return failed.load() ? -1 : 0;
 }
@@ -837,7 +891,7 @@ int64_t hn_wfa_build(const uint8_t* reference, int64_t ref_start,
 // BAM record stream scanner (block-generation span index).
 //
 // The reference's block generator issues one indexed BAM fetch per candidate
-// variant (ref: src/block_gen.rs:630-669), which htslib makes cheap. The TPU
+// variant (ref: src/block_gen.rs:630-669), which htslib makes cheap. This
 // build instead scans each BAM ONCE into compact per-record span arrays and
 // answers the same queries (multispan, next-mapped, supplemental overlap)
 // with vectorized host lookups. This function walks a decompressed BAM
@@ -1544,8 +1598,8 @@ int64_t hn_wfa_batch(
 // ---------------------------------------------------------------------------
 // Lockstep beam diplotype solver — the native host production engine.
 //
-// Exact host mirror of the device kernel in hiphase_tpu/phasing/beam.py
-// (itself a TPU-first redesign of the reference A*, ref: src/astar_phaser.rs):
+// Exact host mirror of the device kernel in hiphase_jax/phasing/beam.py
+// (itself a batched redesign of the reference A*, ref: src/astar_phaser.rs):
 // a fixed-width beam advances over variant columns; candidates are ranked by
 // (MEC cost asc, num_hets desc, insertion order asc) — the reference's
 // priority triple (astar_phaser.rs:131-133) — with expansion order
@@ -2172,13 +2226,13 @@ void hn_span_scan_free(void* h) {
 // variant loader (ref: src/phaser.rs:27-323), and the ordered writer's
 // copy-transform (ref: src/writers/ordered_vcf_writer.rs:291-434) — all run
 // from shared arrays. Classification mirrors block_gen.rs:115-312 /
-// hiphase_tpu/phasing/block_gen.py exactly; records the Python layer would
+// hiphase_jax/phasing/block_gen.py exactly; records the Python layer would
 // reject get vtype/zyg = -1 and are re-parsed in Python so error messages
 // (and parity) are preserved.
 
 namespace vcf_scan {
 
-// VariantType codes (hiphase_tpu/core/variants.py)
+// VariantType codes (hiphase_jax/core/variants.py)
 enum : int8_t {
   kSnv = 0, kIns = 1, kDel = 2, kIndel = 3, kSvIns = 4, kSvDel = 5,
   kSvDup = 6, kSvInv = 7, kSvBnd = 8, kTr = 9, kUnknown = 10, kErr = -1
@@ -2752,7 +2806,7 @@ int64_t hn_vcf_transform(
 // rANS 4x8 decoder (CRAM 3.0 spec §13) — the block compression method
 // real-world CRAMs use for external data series. Order-0 and order-1,
 // 4 interleaved 32-bit states, 12-bit frequencies. The Python module
-// hiphase_tpu/io/rans.py is the specification oracle this is tested
+// hiphase_jax/io/rans.py is the specification oracle this is tested
 // against (and provides the encoder).
 
 namespace rans4x8 {

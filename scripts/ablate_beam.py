@@ -50,7 +50,7 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import numpy as np  # noqa: E402
 
-from hiphase_tpu.phasing.beam import (  # noqa: E402
+from hiphase_jax.phasing.beam import (  # noqa: E402
     BIG, _choice_a1, _choice_a2, beam_init_state, max_hets_for,
     order_bits_for,
 )
@@ -61,7 +61,6 @@ def _dstep(state, inputs, beam_width: int, variant: str):
       dfull    replicate production (sanity baseline)
       dnored   min-sum reductions replaced by zeros (isolate reduction cost)
       dnogath  selection kept, delta gather skipped (isolate gather)
-      dmm      reductions via MXU einsum with a ones vector
       dlook    reductions computed from new_delta at the END of the step
                (fused into the gather-update pass), carried to next step
     """
@@ -83,15 +82,6 @@ def _dstep(state, inputs, beam_width: int, variant: str):
     if variant == "dnored":
         z = jnp.zeros((B, W), jnp.int32)
         m0, mp, mm = z, z, z
-    elif variant == "dmm":
-        ones = jnp.ones((R,), jnp.float32)
-        ms = jnp.stack([
-            jnp.minimum(delta, 0),
-            jnp.minimum(delta + e0[:, None, :], 0),
-            jnp.minimum(delta - e0[:, None, :], 0)], axis=2)  # [B,W,3,R]
-        red = jnp.einsum("bwkr,r->bwk", ms.astype(jnp.float32), ones)
-        red = red.astype(jnp.int32)
-        m0, mp, mm = red[:, :, 0], red[:, :, 1], red[:, :, 2]
     elif variant != "dlook":
         m0 = jnp.sum(jnp.minimum(delta, 0), axis=-1, dtype=jnp.int32)
         mp = jnp.sum(jnp.minimum(delta + e0[:, None, :], 0), axis=-1,

@@ -1,7 +1,7 @@
 """Device graph-WFA microbench: batched banded-DP aligner vs the host C++
 wavefront aligner on a realistic window (reads/s per engine).
 
-Run on the TPU (or CPU backend for a smoke test):
+Run on the accelerator (or JAX_PLATFORMS=cpu for a smoke test):
     timeout 300 python scripts/bench_wfa_device.py [--reads 64] [--window 2000]
 Prints one JSON line.
 """
@@ -26,9 +26,9 @@ args = ap.parse_args()
 
 
 def main():
-    from hiphase_tpu.align.wfa_device import align_reads_device
-    from hiphase_tpu.align.wfa_graph import WFAGraph
-    from hiphase_tpu.core.variants import Variant
+    from hiphase_jax.align.wfa_device import align_reads_device
+    from hiphase_jax.align.wfa_graph import WFAGraph
+    from hiphase_jax.core.variants import Variant
 
     rng = np.random.default_rng(0)
     L = args.window
@@ -68,7 +68,7 @@ def main():
     import jax
     host_best = None
     try:
-        from hiphase_tpu.io import native
+        from hiphase_jax.io import native
         if native.available():
             host_best = float("inf")
             for _ in range(args.reps):

@@ -9,8 +9,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from hiphase_tpu.io.bam import CIGAR_OPS, SEQ_NT16, BamRecord, BamWriter, SamHeader, reg2bin
-from hiphase_tpu.io.vcf import VcfHeader, VcfRecord, VcfWriter
+from hiphase_jax.io.bam import CIGAR_OPS, SEQ_NT16, BamRecord, BamWriter, SamHeader, reg2bin
+from hiphase_jax.io.vcf import VcfHeader, VcfRecord, VcfWriter
 
 BASES = b"ACGT"
 

@@ -7,8 +7,8 @@ import gzip
 
 import pytest
 
-from hiphase_tpu.io.bcf import BcfReader, BcfWriter, is_bcf
-from hiphase_tpu.io.vcf import VcfReader
+from hiphase_jax.io.bcf import BcfReader, BcfWriter, is_bcf
+from hiphase_jax.io.vcf import VcfReader
 
 from tests.sim import build_dataset
 
@@ -72,7 +72,7 @@ def _vcf_to_bcf(vcf_gz: str, bcf_path: str) -> None:
 
 
 def test_e2e_bcf_in_bcf_out(tmp_path):
-    from hiphase_tpu.cli import main as cli_main
+    from hiphase_jax.cli import main as cli_main
 
     fasta, vcf, bam, _contigs, _ = build_dataset(
         tmp_path, seed=71, n_contigs=2, contig_len=9000, coverage=13)
@@ -123,7 +123,7 @@ def test_gt_phased_missing_and_wide_alleles(tmp_path):
 
 
 def test_undeclared_key_clean_error(tmp_path):
-    from hiphase_tpu.io.bcf import BcfError
+    from hiphase_jax.io.bcf import BcfError
     hdr = [b"##fileformat=VCFv4.2",
            b'##contig=<ID=c,length=1000>',
            b'##FORMAT=<ID=GT,Number=1,Type=String,Description="x">',

@@ -1,6 +1,6 @@
 """Block statistics math (parity vectors from ref: block_stats.rs tests)."""
 
-from hiphase_tpu.writers.block_stats import BlockStatsCollector, calculate_block_ng50
+from hiphase_jax.writers.block_stats import BlockStatsCollector, calculate_block_ng50
 
 
 def test_calculate_block_ng50():
@@ -18,7 +18,7 @@ def test_calculate_block_ng50():
 
 
 def test_summary_row_math():
-    from hiphase_tpu.phasing.block_gen import PhaseBlock
+    from hiphase_jax.phasing.block_gen import PhaseBlock
 
     blocks = []
     for i, (start, end, nv) in enumerate([(100, 1099, 10), (2000, 2000, 1),

@@ -3,8 +3,8 @@
 
 import numpy as np
 
-from hiphase_tpu.cli import main as cli_main
-from hiphase_tpu.io.vcf import VcfReader
+from hiphase_jax.cli import main as cli_main
+from hiphase_jax.io.vcf import VcfReader
 
 from tests import sim
 from tests.test_e2e import run_cli
@@ -37,7 +37,7 @@ def test_ignore_read_groups(tmp_path):
     sim.write_fasta(fasta, [contig])
     sim.write_vcf(vcf, [contig])
     reads = sim.simulate_reads(rng, contig, 0)  # no RG tag
-    from hiphase_tpu.io.bam import BamWriter, SamHeader
+    from hiphase_jax.io.bam import BamWriter, SamHeader
     header = SamHeader("@HD\tVN:1.6\tSO:coordinate\n", ["chr1"], [8000])
     w = BamWriter(bam, header)
     for _pos, rec, _hap in reads:

@@ -4,9 +4,9 @@ output (ref: src/writers/ordered_bam_writer.rs:76-80 — CRAM by extension)."""
 
 import pytest
 
-from hiphase_tpu.core.reference_genome import ReferenceGenome
-from hiphase_tpu.io.bam import BamReader
-from hiphase_tpu.io.cram import CramReader, CramWriter
+from hiphase_jax.core.reference_genome import ReferenceGenome
+from hiphase_jax.io.bam import BamReader
+from hiphase_jax.io.cram import CramReader, CramWriter
 
 from tests.sim import build_dataset
 
@@ -66,8 +66,8 @@ def test_fetch_parity(dataset):
 def test_e2e_cram_in_cram_out(dataset, tmp_path):
     """Phase from .cram input to a haplotagged .cram output; VCF and tags
     must equal the BAM-path run."""
-    from hiphase_tpu.cli import main as cli_main
-    from hiphase_tpu.io.vcf import VcfReader
+    from hiphase_jax.cli import main as cli_main
+    from hiphase_jax.io.vcf import VcfReader
 
     ref = ReferenceGenome.from_fasta(dataset["fasta"])
     cram_in = str(tmp_path / "in.cram")

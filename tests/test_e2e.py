@@ -4,9 +4,9 @@ simulation truth, haplotagged BAM, stats outputs, and engine agreement."""
 import numpy as np
 import pytest
 
-from hiphase_tpu.cli import main as cli_main
-from hiphase_tpu.io.bam import BamReader
-from hiphase_tpu.io.vcf import VcfReader
+from hiphase_jax.cli import main as cli_main
+from hiphase_jax.io.bam import BamReader
+from hiphase_jax.io.vcf import VcfReader
 
 from tests.sim import build_dataset
 
@@ -114,11 +114,11 @@ def test_e2e_tpu_engine_matches_astar(tmp_path):
                                                 n_contigs=1, contig_len=12000)
     vcf_a, _ = run_cli(tmp_path, fasta, vcf, bam, name="astar")
     vcf_b, _ = run_cli(tmp_path, fasta, vcf, bam,
-                       extra=["--engine", "tpu", "--beam-width", "64"],
-                       name="tpu")
+                       extra=["--engine", "device", "--beam-width", "64"],
+                       name="device")
     recs_a = [r.serialize() for r in VcfReader(vcf_a)]
     recs_b = [r.serialize() for r in VcfReader(vcf_b)]
-    assert recs_a == recs_b, "TPU engine output differs from A* oracle"
+    assert recs_a == recs_b, "device engine output differs from A* oracle"
 
 
 def test_e2e_prephased_input_stripped(tmp_path):
@@ -126,7 +126,7 @@ def test_e2e_prephased_input_stripped(tmp_path):
     fasta, vcf, bam, contigs, _ = build_dataset(tmp_path, seed=3,
                                                 n_contigs=1, contig_len=10000)
     # rewrite the VCF with pre-phased GTs + bogus PS everywhere
-    from hiphase_tpu.io.vcf import VcfHeader, VcfRecord, VcfWriter
+    from hiphase_jax.io.vcf import VcfHeader, VcfRecord, VcfWriter
     rd = VcfReader(vcf)
     header = VcfHeader(list(rd.header.lines), list(rd.samples))
     header.add_line('##FORMAT=<ID=PS,Number=1,Type=Integer,Description="x">')
@@ -183,8 +183,8 @@ def test_bam_writer_native_window_matches_record_path(tmp_path):
     """The bulk native strip+retag window path must produce records
     byte-identical (including aux tag order and widths) to the per-record
     Python path."""
-    from hiphase_tpu.io import native as native_mod
-    from hiphase_tpu.writers.bam_writer import OrderedBamWriter
+    from hiphase_jax.io import native as native_mod
+    from hiphase_jax.writers.bam_writer import OrderedBamWriter
 
     if not native_mod.available():
         pytest.skip("native library not built")

@@ -14,10 +14,10 @@ import pathlib
 
 import pytest
 
-from hiphase_tpu.cli import main as cli_main
-from hiphase_tpu.io.bam import BamReader
-from hiphase_tpu.io.vcf import VcfReader
-from hiphase_tpu.utils.simulate import build_benchmark_dataset
+from hiphase_jax.cli import main as cli_main
+from hiphase_jax.io.bam import BamReader
+from hiphase_jax.io.vcf import VcfReader
+from hiphase_jax.utils.simulate import build_benchmark_dataset
 
 GOLDEN_DIR = pathlib.Path(__file__).parent / "goldens"
 GOLDEN = GOLDEN_DIR / "e2e_wgs_sim.json"
@@ -35,8 +35,8 @@ def _run(tmp_path, engine: str):
             "--reference", meta["fasta"], "--output-vcf", out_vcf,
             "--output-bam", out_bam,
             "--blocks-file", str(tmp_path / f"{engine}.blocks.tsv")]
-    if engine == "tpu":
-        argv += ["--engine", "tpu", "--batch-size", "8"]
+    if engine == "device":
+        argv += ["--engine", "device", "--batch-size", "8"]
     else:
         argv += ["--engine", engine]
     assert cli_main(argv) == 0
@@ -91,7 +91,7 @@ def test_golden_outputs(tmp_path):
 
 def test_golden_outputs_tpu_engine(tmp_path):
     """The device engine must produce the same golden output."""
-    out = _normalize(*_run(tmp_path, "tpu"))
+    out = _normalize(*_run(tmp_path, "device"))
     golden = json.loads(GOLDEN.read_text())
     assert _digest(out) == golden["sha256"]
 

@@ -4,8 +4,8 @@ tandem repeat, through both realignment modes."""
 import numpy as np
 import pytest
 
-from hiphase_tpu.cli import main as cli_main
-from hiphase_tpu.io.vcf import VcfReader
+from hiphase_jax.cli import main as cli_main
+from hiphase_jax.io.vcf import VcfReader
 
 from tests import sim
 from tests.test_e2e import check_phasing_against_truth

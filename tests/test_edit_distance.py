@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from hiphase_tpu.align.edit_distance import edit_distance, edit_distance_batch
+from hiphase_jax.align.edit_distance import edit_distance, edit_distance_batch
 
 
 def test_edit_distance_basic():

@@ -1,5 +1,5 @@
 """Engine auto-selection and device-health resilience
-(hiphase_tpu/parallel/engine_select.py): a hung device call must degrade the
+(hiphase_jax/parallel/engine_select.py): a hung device call must degrade the
 run to the native host engine with every outstanding block re-solved and no
 duplicate or lost results."""
 
@@ -8,11 +8,11 @@ import time
 import numpy as np
 import pytest
 
-from hiphase_tpu.io import native
-from hiphase_tpu.parallel.engine_select import ResilientSolver, choose_engine
-from hiphase_tpu.phasing.native_beam import NativeBeamSolver
-from hiphase_tpu.phasing.phaser import BlockData
-from hiphase_tpu.phasing.block_gen import PhaseBlock
+from hiphase_jax.io import native
+from hiphase_jax.parallel.engine_select import ResilientSolver, choose_engine
+from hiphase_jax.phasing.native_beam import NativeBeamSolver
+from hiphase_jax.phasing.phaser import BlockData
+from hiphase_jax.phasing.block_gen import PhaseBlock
 
 from tests.test_solver import make_block
 
@@ -78,7 +78,7 @@ def test_healthy_device_passes_through():
 def test_choose_engine_explicit_passthrough():
     assert choose_engine("astar") == "astar"
     assert choose_engine("native") == "native"
-    assert choose_engine("tpu") == "tpu"
+    assert choose_engine("device") == "device"
 
 
 def test_choose_engine_auto_on_cpu_prefers_native():
@@ -91,10 +91,10 @@ def test_choose_engine_auto_on_cpu_prefers_native():
 @pytest.mark.skipif(not native.available(), reason="native library not built")
 def test_deferred_upgrade_switches_mid_run():
     """Auto mode starts on native and upgrades to the device solver when
-    the probe future resolves to 'tpu'; no blocks lost or duplicated."""
+    the probe future resolves to 'device'; no blocks lost or duplicated."""
     from concurrent.futures import Future
 
-    from hiphase_tpu.parallel.engine_select import DeferredUpgradeSolver
+    from hiphase_jax.parallel.engine_select import DeferredUpgradeSolver
 
     fut = Future()
     made = []
@@ -110,7 +110,7 @@ def test_deferred_upgrade_switches_mid_run():
     results = []
     for i, b in enumerate(blocks):
         if i == 3:
-            fut.set_result("tpu")
+            fut.set_result("device")
         results.extend(solver.submit(b))
     results.extend(solver.drain())
     assert made, "device solver was never built"
@@ -122,7 +122,7 @@ def test_deferred_upgrade_switches_mid_run():
 def test_deferred_upgrade_ignores_unresolved_probe():
     from concurrent.futures import Future
 
-    from hiphase_tpu.parallel.engine_select import DeferredUpgradeSolver
+    from hiphase_jax.parallel.engine_select import DeferredUpgradeSolver
 
     fut = Future()  # never resolves (hung probe)
     solver = DeferredUpgradeSolver(NativeBeamSolver(batch_size=2), fut,
@@ -138,20 +138,20 @@ def test_deferred_upgrade_ignores_unresolved_probe():
 
 def test_choose_engine_measured_rates_device_wins(monkeypatch):
     """'auto' routes on MEASURED economics: a device that beats the native
-    rate by the margin is chosen even on a high-latency link (the old 5ms
-    constant must not veto a fast device)."""
-    from hiphase_tpu.parallel import engine_select as es
+    rate by the margin is chosen even at a high round-trip latency (the 5 ms
+    fallback constant must not veto a fast device)."""
+    from hiphase_jax.parallel import engine_select as es
 
     monkeypatch.setattr(es, "probe_accelerator", lambda **_: (True, 0.030))
     monkeypatch.setattr(es, "measure_engine_rates",
                         lambda **_: {"device": 100_000.0, "native": 9_000.0})
-    assert es.choose_engine("auto") == "tpu"
+    assert es.choose_engine("auto") == "device"
 
 
 def test_choose_engine_measured_rates_native_wins(monkeypatch):
     """...and a device that measures slower than the host is rejected even
-    on a low-latency link."""
-    from hiphase_tpu.parallel import engine_select as es
+    at a low round-trip latency."""
+    from hiphase_jax.parallel import engine_select as es
 
     if not native.available():
         pytest.skip("native library not built")
@@ -163,17 +163,17 @@ def test_choose_engine_measured_rates_native_wins(monkeypatch):
 
 def test_choose_engine_latency_fallback(monkeypatch):
     """With no rate measurement available the latency heuristic decides."""
-    from hiphase_tpu.parallel import engine_select as es
+    from hiphase_jax.parallel import engine_select as es
 
     monkeypatch.setattr(es, "probe_accelerator", lambda **_: (True, 0.0001))
     monkeypatch.setattr(es, "measure_engine_rates", lambda **_: None)
-    assert es.choose_engine("auto") == "tpu"
+    assert es.choose_engine("auto") == "device"
 
 
 def test_measure_native_rate_runs():
     """The native half of the measurement produces a real positive rate on
     the shared synthetic workload."""
-    from hiphase_tpu.parallel import engine_select as es
+    from hiphase_jax.parallel import engine_select as es
 
     if not native.available():
         pytest.skip("native library not built")

@@ -8,7 +8,7 @@ import gzip
 
 import pytest
 
-from hiphase_tpu.cli import main as cli_main
+from hiphase_jax.cli import main as cli_main
 
 from tests.sim import build_dataset
 

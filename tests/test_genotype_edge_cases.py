@@ -3,8 +3,8 @@
 
 import numpy as np
 
-from hiphase_tpu.cli import main as cli_main
-from hiphase_tpu.io.vcf import VcfHeader, VcfReader, VcfRecord, VcfWriter
+from hiphase_jax.cli import main as cli_main
+from hiphase_jax.io.vcf import VcfHeader, VcfReader, VcfRecord, VcfWriter
 
 from tests import sim
 

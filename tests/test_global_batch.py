@@ -6,15 +6,15 @@ exactly — segments, quals, stats, and fallback decisions
 import numpy as np
 import pytest
 
-from hiphase_tpu.io import native
-from hiphase_tpu.core.reference_genome import ReferenceGenome
-from hiphase_tpu.phasing import global_realign
-from hiphase_tpu.phasing.block_gen import (
+from hiphase_jax.io import native
+from hiphase_jax.core.reference_genome import ReferenceGenome
+from hiphase_jax.phasing import global_realign
+from hiphase_jax.phasing.block_gen import (
     MultiPhaseBlockIterator, PhaseBlockIterator,
 )
-from hiphase_tpu.phasing.phaser import _mark_tr_overlaps, load_variant_calls
-from hiphase_tpu.phasing.read_parsing import GlobalRealignmentConfig
-from hiphase_tpu.utils.simulate import build_benchmark_dataset
+from hiphase_jax.phasing.phaser import _mark_tr_overlaps, load_variant_calls
+from hiphase_jax.phasing.read_parsing import GlobalRealignmentConfig
+from hiphase_jax.utils.simulate import build_benchmark_dataset
 
 
 @pytest.fixture(scope="module")

@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from hiphase_tpu.cli import main as cli_main
-from hiphase_tpu.io.vcf import VcfReader
+from hiphase_jax.cli import main as cli_main
+from hiphase_jax.io.vcf import VcfReader
 
 from tests.sim import build_dataset
 from tests.test_e2e import check_phasing_against_truth, run_cli
@@ -37,10 +37,10 @@ def test_global_vs_local_same_phasing(tmp_path):
 
 def test_global_quals_are_doubled_baseline(tmp_path):
     """Global realignment assigns exactly 2× baseline quals (SNV: 160)."""
-    from hiphase_tpu.core.reference_genome import ReferenceGenome
-    from hiphase_tpu.phasing.block_gen import MultiPhaseBlockIterator, PhaseBlockIterator
-    from hiphase_tpu.phasing.phaser import prepare_block
-    from hiphase_tpu.phasing.read_parsing import GlobalRealignmentConfig
+    from hiphase_jax.core.reference_genome import ReferenceGenome
+    from hiphase_jax.phasing.block_gen import MultiPhaseBlockIterator, PhaseBlockIterator
+    from hiphase_jax.phasing.phaser import prepare_block
+    from hiphase_jax.phasing.read_parsing import GlobalRealignmentConfig
 
     fasta, vcf, bam, contigs, _ = build_dataset(tmp_path, seed=7,
                                                 n_contigs=1, contig_len=6000)

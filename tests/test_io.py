@@ -6,13 +6,13 @@ import struct
 import numpy as np
 import pytest
 
-from hiphase_tpu.io.bam import (
+from hiphase_jax.io.bam import (
     BamReader, BamRecord, BamWriter, SamHeader, reg2bin, reg2bins,
 )
-from hiphase_tpu.io.bgzf import (
+from hiphase_jax.io.bgzf import (
     BGZF_EOF, BgzfReader, BgzfWriter, compress_block, is_bgzf,
 )
-from hiphase_tpu.io.vcf import VcfHeader, VcfReader, VcfRecord, VcfWriter, get_vcf_samples
+from hiphase_jax.io.vcf import VcfHeader, VcfReader, VcfRecord, VcfWriter, get_vcf_samples
 
 
 # ---------------- BGZF ----------------
@@ -79,7 +79,7 @@ def test_bam_reads_reference_fixtures(ref_test_data):
 
 def _make_record(name: str, refid: int, pos: int, seq: bytes, cigar: list,
                  mapq: int = 60, flag: int = 0, quals: bytes | None = None) -> BamRecord:
-    from hiphase_tpu.io.bam import CIGAR_OPS, SEQ_NT16
+    from hiphase_jax.io.bam import CIGAR_OPS, SEQ_NT16
     nameb = name.encode() + b"\x00"
     cig = b"".join(struct.pack("<I", (length << 4) | CIGAR_OPS.index(op))
                    for op, length in cigar)
@@ -242,8 +242,8 @@ def test_bam_opens_with_csi_only_index(tmp_path):
     .csi index must open and fetch identically (ref: phaser.rs:43-45)."""
     import os
 
-    from hiphase_tpu.io.bam import BaiIndex, BamReader
-    from hiphase_tpu.io.tabix import TabixIndex
+    from hiphase_jax.io.bam import BaiIndex, BamReader
+    from hiphase_jax.io.tabix import TabixIndex
 
     from tests.sim import simulate_contig, simulate_reads, write_bam
 
@@ -273,7 +273,7 @@ def test_bam_writer_emits_csi_for_long_contigs(tmp_path):
     (htslib's switch) and region fetch must work beyond 2^29."""
     import os
 
-    from hiphase_tpu.io.bam import BamReader, BamWriter, SamHeader
+    from hiphase_jax.io.bam import BamReader, BamWriter, SamHeader
 
     from tests.sim import make_bam_record
 
@@ -301,7 +301,7 @@ def test_fetch_includes_placed_unmapped(tmp_path):
     """htslib region fetches return placed-unmapped mates (FLAG 0x4 with a
     valid position); ours must too, and the haplotag writer must copy them
     identically through the native and record paths."""
-    from hiphase_tpu.io.bam import BamReader, BamWriter, SamHeader
+    from hiphase_jax.io.bam import BamReader, BamWriter, SamHeader
 
     from tests.sim import make_bam_record
 
@@ -332,7 +332,7 @@ def test_fetch_includes_placed_unmapped(tmp_path):
 def test_stream_cursor_error_propagates(tmp_path):
     """A decode failure mid-stream must surface as None (use the record
     fallback), never as silent end-of-data."""
-    from hiphase_tpu.io.bam import BamReader, BamWriter, SamHeader
+    from hiphase_jax.io.bam import BamReader, BamWriter, SamHeader
 
     from tests.sim import make_bam_record
 

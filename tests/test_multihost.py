@@ -3,6 +3,7 @@ processes) whose host-0 outputs must equal the single-process run —
 phased VCF, haplotagged BAM, and all four stats files (SURVEY.md
 §2.9/§5.8 — the distributed-backend obligation)."""
 
+import pathlib
 import socket
 import subprocess
 import sys
@@ -10,22 +11,22 @@ import textwrap
 
 import pytest
 
-from hiphase_tpu.io.vcf import VcfReader
+from hiphase_jax.io.vcf import VcfReader
 
 from tests.sim import build_dataset
 from tests.test_e2e import run_cli
 
-REPO = "/root/repo"
+REPO = str(pathlib.Path(__file__).resolve().parents[1])
 
 DRIVER = textwrap.dedent("""
     import sys
     sys.path.insert(0, {repo!r})
     import os
-    os.environ["HIPHASE_TPU_PROBE_CACHE"] = "0"
+    os.environ["HIPHASE_PROBE_CACHE"] = "0"
     import jax
     jax.config.update("jax_platforms", "cpu")
     jax.distributed.initialize({coord!r}, {n!r}, int(sys.argv[1]))
-    from hiphase_tpu.cli import main
+    from hiphase_jax.cli import main
     rc = main(["--bam", {bam!r}, "--vcf", {vcf!r}, "--reference", {fasta!r},
                "--output-vcf", {out!r}, "--output-bam", {out_bam!r},
                "--stats-file", {stats!r}, "--haplotag-file", {tags!r},
@@ -46,13 +47,15 @@ def _free_port() -> int:
 
 
 def _bam_records(path):
-    from hiphase_tpu.io.bam import BamReader
+    from hiphase_jax.io.bam import BamReader
     with BamReader(path) as rd:
         return [(r.read_name, r.refid, r.pos, r.flag, r.get_tag("HP"),
                  r.get_tag("PS")) for r in rd]
 
 
-@pytest.mark.parametrize("n_procs,engine", [(2, "tpu"), (4, "native")])
+@pytest.mark.parametrize("n_procs,engine", [
+    pytest.param(2, "device", id="2-tpu"),  # id kept from the engine's old name
+    (4, "native")])
 def test_multiprocess_run_matches_single(tmp_path, n_procs, engine):
     fasta, vcf, bam, _contigs, _ = build_dataset(
         tmp_path, seed=31, n_contigs=4, contig_len=6000, coverage=15)

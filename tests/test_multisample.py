@@ -3,9 +3,9 @@ phase blocks merged by the multi iterator, dummy-block BAM protocol."""
 
 import numpy as np
 
-from hiphase_tpu.cli import main as cli_main
-from hiphase_tpu.io.bam import BamReader
-from hiphase_tpu.io.vcf import VcfHeader, VcfReader, VcfRecord, VcfWriter
+from hiphase_jax.cli import main as cli_main
+from hiphase_jax.io.bam import BamReader
+from hiphase_jax.io.vcf import VcfHeader, VcfReader, VcfRecord, VcfWriter
 
 from tests import sim
 

@@ -4,8 +4,8 @@ into one set of phase blocks; each output VCF carries its own records."""
 
 import numpy as np
 
-from hiphase_tpu.cli import main as cli_main
-from hiphase_tpu.io.vcf import VcfReader
+from hiphase_jax.cli import main as cli_main
+from hiphase_jax.io.vcf import VcfReader
 
 from tests import sim
 
@@ -100,7 +100,7 @@ def test_empty_contig_passthrough(tmp_path):
         gt, phased = r.genotype(0)
         assert gt == [1, 1] and not phased
     # chr2 reads all copied untagged
-    from hiphase_tpu.io.bam import BamReader
+    from hiphase_jax.io.bam import BamReader
     with BamReader(out_bam) as b:
         chr2_reads = [r for r in b if r.refid == 1]
         assert len(chr2_reads) == len(reads2)

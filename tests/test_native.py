@@ -1,12 +1,14 @@
 """Native C++ library tests (skipped when the .so is not built)."""
 
 import io
+import os
+import subprocess
 
 import numpy as np
 import pytest
 
-from hiphase_tpu.io import native
-from hiphase_tpu.io.bgzf import BGZF_EOF, BgzfBatchWriter, BgzfReader
+from hiphase_jax.io import native
+from hiphase_jax.io.bgzf import BGZF_EOF, BgzfBatchWriter, BgzfReader
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native library not built")
@@ -19,6 +21,27 @@ def test_native_bgzf_roundtrip_with_python_reader():
     blob = native.bgzf_compress_blocks(payloads, threads=2)
     r = BgzfReader(io.BytesIO(blob + BGZF_EOF))
     assert r.read_all() == b"".join(payloads)
+
+
+def test_build_is_current_after_load():
+    assert os.path.exists(native.SO_PATH)
+    assert not native._is_stale()
+
+
+def test_zlib_only_build_round_trips(tmp_path, monkeypatch):
+    """The build without libdeflate (hosts that lack it) writes BGZF that
+    the Python reader inflates, and inflates the Python writer's BGZF."""
+    so = tmp_path / "libhiphase_native_zlib.so"
+    subprocess.run(["make", "-s", "-B", "-C", native.NATIVE_DIR,
+                    f"TARGET={so}", "HAVE_LIBDEFLATE=0"],
+                   check=True, capture_output=True)
+    monkeypatch.setattr(native, "SO_PATH", str(so))
+    monkeypatch.setattr(native, "_is_stale", lambda: False)
+    monkeypatch.setattr(native, "_LIB", None)
+    monkeypatch.setattr(native, "_TRIED", False)
+    assert native.available() and not native.has_libdeflate()
+    test_native_bgzf_roundtrip_with_python_reader()
+    test_native_decompress_python_stream(tmp_path)
 
 
 def test_native_decompress_python_stream(tmp_path):
@@ -47,7 +70,7 @@ def test_batch_writer_voffsets(tmp_path):
 
 
 def test_native_edit_distance_matches_python():
-    from hiphase_tpu.align.edit_distance import edit_distance
+    from hiphase_jax.align.edit_distance import edit_distance
     rng = np.random.default_rng(1)
     Q = rng.choice(list(b"ACGT"), size=(100, 40)).astype(np.uint8)
     T = rng.choice(list(b"ACGT"), size=(100, 35)).astype(np.uint8)

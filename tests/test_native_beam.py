@@ -5,9 +5,9 @@ hets, and pruned accounting (ref semantics: src/astar_phaser.rs)."""
 import numpy as np
 import pytest
 
-from hiphase_tpu.io import native
-from hiphase_tpu.phasing.astar import astar_solver
-from hiphase_tpu.phasing.beam import solve_blocks, tensorize_block
+from hiphase_jax.io import native
+from hiphase_jax.phasing.astar import astar_solver
+from hiphase_jax.phasing.beam import solve_blocks, tensorize_block
 
 from tests.test_solver import make_block
 
@@ -116,7 +116,7 @@ def test_batch_of_blocks_threaded():
 
 
 def test_empty_and_tiny_blocks():
-    from hiphase_tpu.core.variants import Variant
+    from hiphase_jax.core.variants import Variant
     v = [Variant.new_snv(0, 10, b"A", b"C", 0, 1)]
     (h1, h2, cost, hets, pruned), = native_solve([(v, [])])
     assert cost == 0 and pruned == 0

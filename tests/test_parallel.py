@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from hiphase_tpu.parallel.sharding import make_mesh, pad_batch, solve_blocks_sharded
-from hiphase_tpu.phasing.beam import solve_blocks
+from hiphase_jax.parallel.sharding import make_mesh, pad_batch, solve_blocks_sharded
+from hiphase_jax.phasing.beam import solve_blocks
 
 
 def _rand_block(rng, R=16, V=8):
@@ -47,7 +47,7 @@ def test_graft_entry():
 
 def test_multihost_block_sharding():
     """Deterministic round-robin host sharding covers every block once."""
-    from hiphase_tpu.parallel.multihost import blocks_for_host, shard_block_stream
+    from hiphase_jax.parallel.multihost import blocks_for_host, shard_block_stream
 
     class B:
         def __init__(self, i):

@@ -6,7 +6,7 @@ CRAMs use; ref gap from VERDICT r03 #6)."""
 import numpy as np
 import pytest
 
-from hiphase_tpu.io import native, rans
+from hiphase_jax.io import native, rans
 
 
 def _cases(rng):
@@ -63,9 +63,9 @@ def test_cram_rans_blocks_roundtrip(tmp_path):
     """A CRAM written with rans4x8 external blocks must read back
     identically (through the native decoder) — _read_block no longer
     errors on method 4."""
-    from hiphase_tpu.core.reference_genome import ReferenceGenome
-    from hiphase_tpu.io.bam import BamReader
-    from hiphase_tpu.io.cram import CramReader, CramWriter
+    from hiphase_jax.core.reference_genome import ReferenceGenome
+    from hiphase_jax.io.bam import BamReader
+    from hiphase_jax.io.cram import CramReader, CramWriter
 
     from tests.sim import build_dataset
 
@@ -84,7 +84,7 @@ def test_cram_rans_blocks_roundtrip(tmp_path):
         w.close()
         w.write_index()
     # the file must actually contain rans4x8 blocks
-    from hiphase_tpu.io.cram import BLOCK_RANS4X8
+    from hiphase_jax.io.cram import BLOCK_RANS4X8
     raw = open(cram_path, "rb").read()
     assert bytes([BLOCK_RANS4X8]) in raw  # weak but method bytes exist
     got = []
@@ -100,9 +100,9 @@ def test_cram_B_feature_and_canonical_eof(tmp_path):
     """A read base outside the substitution alphabet ('R') must encode as a
     (base, quality) 'B' feature pair without desyncing the QS stream, and
     the file must end with the spec's canonical 38-byte EOF container."""
-    from hiphase_tpu.core.reference_genome import ReferenceGenome
-    from hiphase_tpu.io.bam import SamHeader
-    from hiphase_tpu.io.cram import CramReader, CramWriter
+    from hiphase_jax.core.reference_genome import ReferenceGenome
+    from hiphase_jax.io.bam import SamHeader
+    from hiphase_jax.io.cram import CramReader, CramWriter
 
     from tests.sim import make_bam_record
 
@@ -142,7 +142,7 @@ def test_rans_nx16_roundtrip_matrix():
     PACK/RLE pre-transforms."""
     import numpy as np
 
-    from hiphase_tpu.io import rans_nx16 as rn
+    from hiphase_jax.io import rans_nx16 as rn
 
     rng = np.random.default_rng(0)
     cases = [b"", b"A", b"hello world" * 10,
@@ -166,7 +166,7 @@ def test_rans_nx16_stripe_decode():
     assembled from independently-encoded slices as the spec lays out."""
     import numpy as np
 
-    from hiphase_tpu.io import rans_nx16 as rn
+    from hiphase_jax.io import rans_nx16 as rn
 
     rng = np.random.default_rng(5)
     data = bytes(rng.choice([65, 67, 71, 84], 4001).astype(np.uint8))
@@ -186,7 +186,7 @@ def test_rans_nx16_compresses():
     """DNA-like data must compress near its order-0 entropy."""
     import numpy as np
 
-    from hiphase_tpu.io import rans_nx16 as rn
+    from hiphase_jax.io import rans_nx16 as rn
 
     rng = np.random.default_rng(1)
     d = bytes(rng.choice([65, 67, 71, 84], 50000,
@@ -198,9 +198,9 @@ def test_rans_nx16_compresses():
 def test_cram_rans_nx16_blocks_roundtrip(tmp_path):
     """A CRAM written with ransNx16 external blocks (method 5, the CRAM 3.1
     codec) must read back record-identical."""
-    from hiphase_tpu.core.reference_genome import ReferenceGenome
-    from hiphase_tpu.io.bam import BamReader
-    from hiphase_tpu.io.cram import BLOCK_RANSNX16, CramReader, CramWriter
+    from hiphase_jax.core.reference_genome import ReferenceGenome
+    from hiphase_jax.io.bam import BamReader
+    from hiphase_jax.io.cram import BLOCK_RANSNX16, CramReader, CramWriter
 
     from tests.sim import build_dataset
 
@@ -235,7 +235,7 @@ def test_rans_nx16_constant_and_odd_tables():
     raise rather than silently mis-decode."""
     import pytest as _pytest
 
-    from hiphase_tpu.io import rans_nx16 as rn
+    from hiphase_jax.io import rans_nx16 as rn
 
     for d in (b"AAAAAAAA", b"A" * 4097):
         for order in (0, 1):

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from hiphase_tpu.core import ReadSegment, collapse_read_segments
+from hiphase_jax.core import ReadSegment, collapse_read_segments
 
 
 def test_constructor_trims_to_set_window():

@@ -7,14 +7,14 @@ indels, SV deletions, tandem repeats, and split reads
 import numpy as np
 import pytest
 
-from hiphase_tpu.io import native
-from hiphase_tpu.core.reference_genome import ReferenceGenome
-from hiphase_tpu.phasing import read_parsing
-from hiphase_tpu.phasing.block_gen import (
+from hiphase_jax.io import native
+from hiphase_jax.core.reference_genome import ReferenceGenome
+from hiphase_jax.phasing import read_parsing
+from hiphase_jax.phasing.block_gen import (
     MultiPhaseBlockIterator, PhaseBlockIterator,
 )
-from hiphase_tpu.phasing.phaser import load_variant_calls, _mark_tr_overlaps
-from hiphase_tpu.utils.simulate import build_benchmark_dataset
+from hiphase_jax.phasing.phaser import load_variant_calls, _mark_tr_overlaps
+from hiphase_jax.utils.simulate import build_benchmark_dataset
 
 
 @pytest.fixture(scope="module")

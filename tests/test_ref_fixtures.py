@@ -4,8 +4,8 @@ asserts these strings verbatim in its tests)."""
 
 import pytest
 
-from hiphase_tpu.io.vcf import get_vcf_samples
-from hiphase_tpu.phasing.block_gen import BlockGenError, get_sample_bams
+from hiphase_jax.io.vcf import get_vcf_samples
+from hiphase_jax.phasing.block_gen import BlockGenError, get_sample_bams
 
 
 def test_get_vcf_samples_reference_fixture(ref_test_data):
@@ -31,7 +31,7 @@ def test_multisample_bam_exact_error(ref_test_data):
 
 
 def test_no_read_groups_exact_error(tmp_path):
-    from hiphase_tpu.io.bam import BamWriter, SamHeader
+    from hiphase_jax.io.bam import BamWriter, SamHeader
     path = str(tmp_path / "norg.bam")
     w = BamWriter(path, SamHeader("@HD\tVN:1.6\n", ["c1"], [100]))
     w.close()
@@ -41,7 +41,7 @@ def test_no_read_groups_exact_error(tmp_path):
 
 
 def test_rg_without_sm_exact_error(tmp_path):
-    from hiphase_tpu.io.bam import BamWriter, SamHeader
+    from hiphase_jax.io.bam import BamWriter, SamHeader
     path = str(tmp_path / "nosm.bam")
     w = BamWriter(path, SamHeader("@HD\tVN:1.6\n@RG\tID:rg1\n",
                                   ["c1"], [100]))

@@ -5,9 +5,9 @@ cadence, variant mix, true M/I/D CIGARs, SA-tagged split reads)."""
 import numpy as np
 import pytest
 
-from hiphase_tpu.io.bam import BamReader
-from hiphase_tpu.io.vcf import VcfReader
-from hiphase_tpu.utils.simulate import build_benchmark_dataset
+from hiphase_jax.io.bam import BamReader
+from hiphase_jax.io.vcf import VcfReader
+from hiphase_jax.utils.simulate import build_benchmark_dataset
 
 
 @pytest.fixture(scope="module")
@@ -78,7 +78,7 @@ def test_bam_roundtrip_and_reads_match_reference(dataset):
 def test_block_cadence(dataset):
     """Coverage deserts must break the contigs into many phase blocks:
     ~1 per block_kb (here 120kb over 2Mb -> >= 8 real blocks)."""
-    from hiphase_tpu.phasing.block_gen import PhaseBlockIterator
+    from hiphase_jax.phasing.block_gen import PhaseBlockIterator
 
     it = PhaseBlockIterator([dataset["vcf"]], [dataset["bam"]], "SAMPLE")
     blocks = [b for b in it if b.num_variants > 0 and not b.unphased_block]

@@ -1,4 +1,4 @@
-"""Solver parity: TPU beam engine vs exact A* vs brute force on synthetic
+"""Solver parity: device beam engine vs exact A* vs brute force on synthetic
 phase blocks (the reference validates A* mechanics in astar_phaser.rs tests;
 here we additionally pin optimality and cross-engine agreement)."""
 
@@ -7,10 +7,10 @@ import itertools
 import numpy as np
 import pytest
 
-from hiphase_tpu.core.read_segments import ReadSegment
-from hiphase_tpu.core.variants import Variant
-from hiphase_tpu.phasing.astar import astar_solver
-from hiphase_tpu.phasing.beam import solve_blocks, tensorize_block
+from hiphase_jax.core.read_segments import ReadSegment
+from hiphase_jax.core.variants import Variant
+from hiphase_jax.phasing.astar import astar_solver
+from hiphase_jax.phasing.beam import solve_blocks, tensorize_block
 
 
 def make_block(rng, num_variants, num_reads, flip_prob=0.1, amb_prob=0.05,
@@ -185,7 +185,7 @@ def test_hom_conversion():
 def test_slotted_matches_dense():
     """Slot-packed tensorization (frozen/fluid fold) must give identical
     results to one-row-per-read dense mode."""
-    from hiphase_tpu.phasing.beam import assign_slots
+    from hiphase_jax.phasing.beam import assign_slots
     rng = np.random.default_rng(77)
     for seed in range(4):
         rng = np.random.default_rng(200 + seed)
@@ -207,7 +207,7 @@ def test_slotted_matches_dense():
 
 def test_slotted_with_ignored_and_reset_collision():
     """Resets landing on ignored columns must stay consistent."""
-    from hiphase_tpu.phasing.beam import assign_slots
+    from hiphase_jax.phasing.beam import assign_slots
     rng = np.random.default_rng(300)
     variants, reads, _, _ = make_block(rng, 16, 20, flip_prob=0.1, window=5)
     variants[8].set_ignored()
@@ -232,7 +232,7 @@ def test_slotted_with_ignored_and_reset_collision():
 def test_wide_beam_over_2048_correct():
     """Beam widths above 2048 (a supported --phase-min-queue-size) must not
     overflow the packed sort key: the order field is sized from the width."""
-    from hiphase_tpu.phasing.beam import max_hets_for, order_bits_for
+    from hiphase_jax.phasing.beam import max_hets_for, order_bits_for
     assert order_bits_for(4096) == 14
     assert max_hets_for(4096) == (1 << 17) - 1
     rng = np.random.default_rng(7)

@@ -6,9 +6,9 @@ identically to the per-locus fetch path it replaces
 import numpy as np
 import pytest
 
-from hiphase_tpu.io import native
-from hiphase_tpu.phasing.block_gen import PhaseBlock, PhaseBlockIterator
-from hiphase_tpu.utils.simulate import build_benchmark_dataset
+from hiphase_jax.io import native
+from hiphase_jax.phasing.block_gen import PhaseBlock, PhaseBlockIterator
+from hiphase_jax.utils.simulate import build_benchmark_dataset
 
 
 @pytest.fixture(scope="module")
@@ -58,7 +58,7 @@ def test_next_starts_no_double_count_at_read_start():
     """A single read starting exactly at the queried position must appear
     once: with k=2 the fetch path sees one overlapping read (=> caller
     returns U64_MAX); the index must not manufacture [pos, pos]."""
-    from hiphase_tpu.io.span_index import ChromSpans
+    from hiphase_jax.io.span_index import ChromSpans
     e = np.empty(0, dtype=np.int64)
     spans = ChromSpans(np.array([100], dtype=np.int64),
                        np.array([200], dtype=np.int64), e, e, e, e)

@@ -1,10 +1,10 @@
-"""--stats-file estimated_cost parity: the TPU engine must report the same
+"""--stats-file estimated_cost parity: the device engine must report the same
 heuristic estimate (and therefore the same cost_ratio semantics) as the
 host A* engine (ref: astar_phaser.rs:246-292, phase_stats.rs:130-199)."""
 
 import pytest
 
-from hiphase_tpu.cli import main as cli_main
+from hiphase_jax.cli import main as cli_main
 
 from tests.sim import build_dataset
 
@@ -33,7 +33,7 @@ def test_estimated_cost_matches_astar(tmp_path, queue_args):
                      "--stats-file", str(stats_a)] + queue_args) == 0
     assert cli_main(["--bam", bam, "--vcf", vcf, "--reference", fasta,
                      "--output-vcf", str(tmp_path / "t.vcf.gz"),
-                     "--engine", "tpu", "--batch-size", "4",
+                     "--engine", "device", "--batch-size", "4",
                      "--stats-file", str(stats_t)] + queue_args) == 0
     rows_a = _stats_rows(stats_a)
     rows_t = _stats_rows(stats_t)

@@ -2,8 +2,8 @@
 
 import pytest
 
-from hiphase_tpu.core import AlleleType, Variant, VariantError, VariantType
-from hiphase_tpu.core.variants import UNDETERMINED_ALLELE
+from hiphase_jax.core import AlleleType, Variant, VariantError, VariantType
+from hiphase_jax.core.variants import UNDETERMINED_ALLELE
 
 
 def test_basic_snv():

@@ -5,10 +5,10 @@ the vectorized phasability mask must match the Python record path
 import numpy as np
 import pytest
 
-from hiphase_tpu.io import native
-from hiphase_tpu.io.vcf import VcfReader
-from hiphase_tpu.io.vcf_scan import scan_chrom
-from hiphase_tpu.phasing.block_gen import (
+from hiphase_jax.io import native
+from hiphase_jax.io.vcf import VcfReader
+from hiphase_jax.io.vcf_scan import scan_chrom
+from hiphase_jax.phasing.block_gen import (
     get_variant_type, get_variant_zygosity, is_phasable_variant)
 
 from tests.sim import build_dataset
@@ -62,8 +62,8 @@ def test_scan_matches_record_path(dataset):
 def test_scan_handcrafted_edge_cases(tmp_path):
     """Symbolic ALTs, SVTYPE records, TRID flags, haploid and missing GTs,
     GQ thresholds, multiallelics — native classification must match."""
-    from hiphase_tpu.io.bgzf import BgzfBatchWriter
-    from hiphase_tpu.io.tabix import TabixBuilder
+    from hiphase_jax.io.bgzf import BgzfBatchWriter
+    from hiphase_jax.io.tabix import TabixBuilder
 
     lines = [
         "##fileformat=VCFv4.2",
@@ -96,7 +96,7 @@ def test_scan_handcrafted_edge_cases(tmp_path):
     w.close()
     # tabix index it through the repo's own builder
     tb = TabixBuilder()
-    import hiphase_tpu.io.bgzf as bgzf_mod
+    import hiphase_jax.io.bgzf as bgzf_mod
     with bgzf_mod.BgzfReader(path) as bz:
         while True:
             vo = bz.virtual_offset
@@ -132,8 +132,8 @@ def test_block_stream_matches_record_path(tmp_path):
     """The array-driven block generator must produce the identical block
     stream (boundaries, counts, unphased flags, variant stats) as the
     streaming-record path."""
-    from hiphase_tpu.phasing.block_gen import PhaseBlockIterator
-    from hiphase_tpu.utils.simulate import build_benchmark_dataset
+    from hiphase_jax.phasing.block_gen import PhaseBlockIterator
+    from hiphase_jax.utils.simulate import build_benchmark_dataset
 
     meta = build_benchmark_dataset(str(tmp_path / "wgs"), total_mb=2,
                                    n_contigs=2, coverage=15,
@@ -158,8 +158,8 @@ def test_writer_array_path_matches_record_path(tmp_path, monkeypatch):
     to the per-record Python writer."""
     import gzip
 
-    from hiphase_tpu.cli import main as cli_main
-    from hiphase_tpu.writers.vcf_writer import OrderedVcfWriter
+    from hiphase_jax.cli import main as cli_main
+    from hiphase_jax.writers.vcf_writer import OrderedVcfWriter
 
     fasta, vcf, bam, _contigs, _ = build_dataset(
         tmp_path, seed=33, n_contigs=2, contig_len=12000, coverage=14)

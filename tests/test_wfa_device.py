@@ -6,9 +6,9 @@ import numpy as np
 import pytest
 
 import tests.test_wfa_graph as twg
-from hiphase_tpu.align.wfa_device import align_reads_device
-from hiphase_tpu.align.wfa_graph import WFAGraph, WFAGraphError, WFAResult
-from hiphase_tpu.core.variants import Variant
+from hiphase_jax.align.wfa_device import align_reads_device
+from hiphase_jax.align.wfa_graph import WFAGraph, WFAGraphError, WFAResult
+from hiphase_jax.core.variants import Variant
 
 
 def _device_result(graph, seq):
@@ -109,8 +109,8 @@ def test_e2e_dual_mode_device_wfa(tmp_path):
     identical to the host WFA engine (score parity flows through to
     alleles, phase sets and haplotypes)."""
     from tests.sim import build_dataset
-    from hiphase_tpu.cli import main as cli_main
-    from hiphase_tpu.io.vcf import VcfReader
+    from hiphase_jax.cli import main as cli_main
+    from hiphase_jax.io.vcf import VcfReader
 
     fasta, vcf, bam, contigs, _truth = build_dataset(
         tmp_path, seed=11, n_contigs=1, contig_len=12000, coverage=12)

@@ -4,8 +4,8 @@ ambiguity spec)."""
 
 import pytest
 
-from hiphase_tpu.align.wfa_graph import WFAGraph, WFAGraphError
-from hiphase_tpu.core.variants import Variant
+from hiphase_jax.align.wfa_graph import WFAGraph, WFAGraphError
+from hiphase_jax.core.variants import Variant
 
 
 def ed(graph, seq):
@@ -245,7 +245,7 @@ def test_native_matches_python_wfa():
     """The C++ WFA must reproduce the Python implementation (score AND
     traversal sets) on randomized variant graphs and reads."""
     import numpy as np
-    from hiphase_tpu.io import native
+    from hiphase_jax.io import native
     if not native.available():
         pytest.skip("native library not built")
     rng = np.random.default_rng(0)
@@ -289,7 +289,7 @@ def test_native_build_matches_python():
     (sequences, edges, allele maps) on randomized windows with homs and
     multi-allelics."""
     import numpy as np
-    from hiphase_tpu.io import native
+    from hiphase_jax.io import native
     if not native.available():
         pytest.skip("native library not built")
     rng = np.random.default_rng(5)
